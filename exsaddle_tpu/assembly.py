@@ -2,10 +2,10 @@
 
 Capability parity with the reference's MatAssemble_Saddle / VecAssemble_F1_qp /
 VecAssemble_F2_qp / MatAssemble_Schur (femixedspace.c:2306-2948), re-expressed
-TPU-first: instead of per-element C loops + MatSetValues into AIJ, all element
-matrices are computed as batched einsums over (nel, nqp, ...) arrays. The
-assembled object is the element-matrix set itself (see operator.py) -- SpMV is
-a batched dense matmul (MXU) + segment-sum scatter, not a CSR kernel.
+for array hardware: instead of per-element C loops + MatSetValues into AIJ, all
+element matrices are computed as batched einsums over (nel, nqp, ...) arrays.
+The assembled object is the element-matrix set itself (see operator.py) -- SpMV
+is a batched dense matmul + segment-sum scatter, not a CSR kernel.
 
 Weak forms (femixedspace.c:2487-2610):
   A11 = sum_q w_q detJ_q eta_q B^T D B,  D = diag(2,2,[2],1,[1,1])

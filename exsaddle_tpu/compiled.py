@@ -1,4 +1,4 @@
-"""Fully-jitted fixed-iteration Krylov paths for TPU execution.
+"""Fully-jitted fixed-iteration Krylov paths for accelerator execution.
 
 The host-orchestrated solvers in krylov.py reproduce PETSc's adaptive
 control flow (convergence tests, restarts) for regression parity; this
@@ -10,6 +10,10 @@ over a device mesh (exsaddle_tpu/parallel).
 Algorithms mirror the reference's solver configuration (abf.opts,
 exSaddle.c:303-422): FGMRES with classical Gram-Schmidt and right
 preconditioning, and Chebyshev smoothing iterations.
+
+Every float32 matrix product here runs at "float32" matmul precision: on
+the GPU a float32 dot with no stated precision runs in TF32, whose ~1e-3
+relative error would perturb the Krylov recurrences.
 """
 
 from functools import partial
@@ -32,6 +36,10 @@ def make_fgmres_cycle(mult, pc_apply, k):
     """
 
     def cycle(F, x0):
+        with jax.default_matmul_precision("float32"):
+            return _cycle(F, x0)
+
+    def _cycle(F, x0):
         n = F.shape[0]
         dtype = F.dtype
         r0 = F - mult(x0)
@@ -46,7 +54,7 @@ def make_fgmres_cycle(mult, pc_apply, k):
             z = pc_apply(V[j])
             w = mult(z)
             # classical (unmodified) Gram-Schmidt: one pass of dots, then
-            # one fused subtraction -- two matmuls on the MXU.
+            # one fused subtraction -- two matrix-vector products.
             mask = (jnp.arange(k + 1) <= j).astype(dtype)
             h = (V @ w) * mask                     # (k+1,)
             w = w - h @ V
@@ -92,6 +100,10 @@ def make_chebyshev(mult, pc_apply, emin, emax, its):
     delta = 0.5 * (emax - emin)
 
     def smooth(b, x0):
+        with jax.default_matmul_precision("float32"):
+            return _smooth(b, x0)
+
+    def _smooth(b, x0):
         r = b - mult(x0)
         d = pc_apply(r) / theta
         x = x0 + d
@@ -117,14 +129,18 @@ def make_fgmres_cycle_tree(k):
 
     Same algorithm as make_fgmres_cycle but with vectors kept as parity
     subgrid pytrees end to end (matfree.mult_tree) -- the fast production
-    path: flat (ndof,) vectors pay grid<->1D relayouts each iteration
-    (~9x at mx=32 on v5e). Pass op/aux/inv_diag as jit ARGUMENTS."""
+    path: flat (ndof,) vectors pay grid<->1D relayouts each iteration.
+    Pass op/aux/inv_diag as jit ARGUMENTS."""
     from exsaddle_tpu.matfree import mult_tree, tree_dot, tree_norm
 
     def tmap(f, *ts):
         return jax.tree.map(f, *ts)
 
     def cycle(op, aux, inv_diag, F, x0):
+        with jax.default_matmul_precision("float32"):
+            return _cycle(op, aux, inv_diag, F, x0)
+
+    def _cycle(op, aux, inv_diag, F, x0):
         mult = lambda t: mult_tree(op, aux, t)
         pc = lambda t: tmap(jnp.multiply, inv_diag, t)
         dtype = F[1].dtype

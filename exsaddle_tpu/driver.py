@@ -210,14 +210,44 @@ def _abf_options_match(opts, prefix="saddle_"):
                                 "none", prefix=prefix) == "none")
 
 
+def abf_solver_kw(opts, prefix="saddle_"):
+    """Keyword arguments of the jitted ABF solvers (ABFSolver,
+    CartABFSolver) that the options tree sets."""
+    nlv_u = opts.get_int("fieldsplit_u_pc_mg_levels", 3, prefix=prefix)
+    max_it = opts.get_int("ksp_max_it", 10000, prefix=prefix)
+    return dict(
+        nlevels=nlv_u,
+        restart=opts.get_int("ksp_gmres_restart", 30, prefix=prefix),
+        rtol=opts.get_real("ksp_rtol", 1e-5, prefix=prefix),
+        atol=opts.get_real("ksp_atol", 1e-50, prefix=prefix),
+        dtol=opts.get_real("ksp_divtol", 1e4, prefix=prefix),
+        max_it=max_it,
+        # monitor history must not truncate where the host path would
+        # print every iteration
+        hist_len=max(256, min(max_it, 100000) + 1),
+        # default matches the host KSPConfig default (1e-5) so an
+        # options tree omitting the rtol solves identically on both
+        # paths; abf.opts sets 1e-2 explicitly
+        gcr_rtol=opts.get_real("fieldsplit_u_ksp_rtol", 1e-5,
+                               prefix=prefix),
+        # numeric u-KSP sub-options ARE honored (ADVICE r4): the GCR
+        # truncation window and iteration cap plumb straight through
+        gcr_restart=opts.get_int("fieldsplit_u_ksp_gcr_restart", 30,
+                                 prefix=prefix),
+        gcr_max_it=opts.get_int("fieldsplit_u_ksp_max_it", 200,
+                                prefix=prefix),
+        cheb_its=opts.get_int("fieldsplit_u_mg_levels_ksp_max_it", 8,
+                              prefix=prefix))
+
+
 def _choose_dev_shape(m_el, ndev):
     """Cartesian device grid for `ndev` devices over `m_el` elements:
     prime factors of ndev assigned largest-first to the axis with the
     largest local element count that divides (balanced slabs, z-major
-    tie-break so single-axis splits land on the outermost axis -- the
-    DCN-friendly layout of parallel.multihost.host_partition). Returns
-    None when ndev does not factor into the mesh (caller falls back to
-    the single-device solver)."""
+    tie-break so single-axis splits land on the outermost axis, the
+    layout parallel.multihost.host_partition assumes). Returns None when
+    ndev does not factor into the mesh (caller falls back to the
+    single-device solver)."""
     nd = len(m_el)
     shape = [1] * nd
     mloc = list(m_el)
@@ -372,7 +402,7 @@ def saddle_solve(opts, ndim, lame=False, log=print, nranks=1):
     # options select the solver): when the options tree requests the
     # abf.opts ABF configuration and no host-KSP introspection flag is
     # set, run the fully-jitted ABFSolver -- on an accelerator by
-    # default, anywhere with -tpu 1, never with -tpu 0. The jitted
+    # default, anywhere with -jit 1, never with -jit 0. The jitted
     # p-block is the Chebyshev stand-in for serial bjacobi+ILU(0)
     # (abf.py module docstring), so residual histories are equivalent-
     # quality, not bit-identical to the host stack's. ---
@@ -380,20 +410,20 @@ def saddle_solve(opts, ndim, lame=False, log=print, nranks=1):
                   or dump_pc or dump_pc_op or dump_smoother
                   or dump_mpscaled or dump_operator or nullspace_flag
                   or nranks > 1)
-    tpu_flag = opts.get_bool("tpu", None)
+    jit_flag = opts.get_bool("jit", None)
     ir_flag = opts.get_bool("ir", False)
     rtol_true = opts.get_real("rtol_true", 1e-8)
     ndev = len(jax.devices())
     use_jitted = (_abf_options_match(opts) and not introspect
                   and nlevels == 1)
-    if tpu_flag is None:
+    if jit_flag is None:
         # accelerators dispatch by default; on CPU the host stack stays
         # the default (a virtual multi-device CPU mesh drives the
-        # distributed dispatch explicitly with -tpu 1, as
+        # distributed dispatch explicitly with -jit 1, as
         # __graft_entry__.dryrun_multichip does)
         use_jitted = use_jitted and jax.default_backend() != "cpu"
     else:
-        use_jitted = use_jitted and bool(tpu_flag)
+        use_jitted = use_jitted and bool(jit_flag)
     # multiple visible devices: solve on the full cartesian device mesh
     # (the mpiexec -n N leg of the reference's one executable,
     # Makefile:410-424) when the element grid factors over it
@@ -413,31 +443,7 @@ def saddle_solve(opts, ndim, lame=False, log=print, nranks=1):
     if use_jitted:
         from exsaddle_tpu.abf import ABFSolver
         from exsaddle_tpu.krylov import make_monitor_short
-        nlv_u = opts.get_int("fieldsplit_u_pc_mg_levels", 3, prefix=prefix)
-        max_it = opts.get_int("ksp_max_it", 10000, prefix=prefix)
-        cfg_common = dict(
-            nlevels=nlv_u,
-            restart=opts.get_int("ksp_gmres_restart", 30, prefix=prefix),
-            rtol=opts.get_real("ksp_rtol", 1e-5, prefix=prefix),
-            atol=opts.get_real("ksp_atol", 1e-50, prefix=prefix),
-            dtol=opts.get_real("ksp_divtol", 1e4, prefix=prefix),
-            max_it=max_it,
-            # monitor history must not truncate where the host path would
-            # print every iteration
-            hist_len=max(256, min(max_it, 100000) + 1),
-            # default matches the host KSPConfig default (1e-5) so an
-            # options tree omitting the rtol solves identically on both
-            # paths; abf.opts sets 1e-2 explicitly
-            gcr_rtol=opts.get_real("fieldsplit_u_ksp_rtol", 1e-5,
-                                   prefix=prefix),
-            # numeric u-KSP sub-options ARE honored (ADVICE r4): the GCR
-            # truncation window and iteration cap plumb straight through
-            gcr_restart=opts.get_int("fieldsplit_u_ksp_gcr_restart", 30,
-                                     prefix=prefix),
-            gcr_max_it=opts.get_int("fieldsplit_u_ksp_max_it", 200,
-                                    prefix=prefix),
-            cheb_its=opts.get_int("fieldsplit_u_mg_levels_ksp_max_it", 8,
-                                  prefix=prefix))
+        cfg_common = abf_solver_kw(opts, prefix)
         mode = "direct"
         if cart_shape is not None:
             from exsaddle_tpu.parallel.cart import CartPartition
@@ -447,10 +453,10 @@ def saddle_solve(opts, ndim, lame=False, log=print, nranks=1):
                     "(mixed-precision refinement is the single-device "
                     "path); -rtol_true ignored")
             part = CartPartition(mesh, cart_shape)
-            # multi-PROCESS runtimes (mpiexec-style pod slices) get the
-            # HostComm so each process assembles only its own boxes and
-            # the setup partials ride the DCN reduction channels -- the
-            # O(local) path of parallel/multihost.py
+            # multi-PROCESS runtimes (mpiexec-style, one process per
+            # host) get the HostComm so each process assembles only its
+            # own boxes and sums the setup partials across processes --
+            # the O(local) path of parallel/multihost.py
             comm = None
             if jax.process_count() > 1:
                 from exsaddle_tpu.parallel.multihost import HostComm
@@ -612,7 +618,7 @@ def saddle_solve(opts, ndim, lame=False, log=print, nranks=1):
         log(opts.format_table().rstrip("\n"))
 
     return {"X": X, "result": result, "mesh": mesh, "levels": levels,
-            "ksp": ksp, "F": F}
+            "ksp": ksp, "F": F, "stages": stage_t}
 
 
 def _build_saddle_mg(opts, prefix, levels, lame, fs_coarse, log=print,
@@ -685,6 +691,8 @@ def main(argv=None, ndim=2, lame=False):
     args = sys.argv[1:] if argv is None else argv
     opts = Options.from_args(args)
     jax.config.update("jax_enable_x64", True)
+    from exsaddle_tpu.compile_cache import enable_compile_cache
+    enable_compile_cache()
     saddle_solve(opts, ndim, lame=lame)
 
 

@@ -1,7 +1,8 @@
-"""Structured-grid saddle operator apply (the TPU fast path).
+"""Structured-grid saddle operator apply (the accelerator fast path).
 
 The element-batched apply in operator.py uses generic gather/scatter-add,
-which lowers to slow sorted scatters on TPU. On a structured Q2-Q1 box mesh
+which lowers to indexed scatters with atomic or sorted updates on an
+accelerator. On a structured Q2-Q1 box mesh
 the element->node map is a tensor-product stencil, so both directions can
 be expressed with static strided slices:
 

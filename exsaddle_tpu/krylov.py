@@ -16,8 +16,9 @@ histories reproduce testref/:
     (KSP_PCApply + MatNullSpaceRemove).
 
 Vectors are jnp arrays; the orchestration is host-side Python (scalar pulls),
-mirroring PETSc's host-driven loops. The fully-jitted fixed-iteration path for
-TPU benchmarking lives in exsaddle_tpu/compiled.py.
+mirroring PETSc's host-driven loops. The fully-jitted solvers live in
+exsaddle_tpu/treeops.py and abf.py; fixed-iteration jitted cycles in
+exsaddle_tpu/compiled.py.
 """
 
 from dataclasses import dataclass

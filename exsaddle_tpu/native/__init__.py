@@ -3,7 +3,8 @@
 The reference's performance-critical host-side stack is native (ILUPACK
 F77, METIS/AMD orderings, UMFPACK -- SURVEY.md section 2.3); this package
 holds the equivalents: sequential sparse factorizations that belong next
-to, not on, the TPU compute path. Libraries are compiled on first use with
+to, not on, the accelerator compute path. Libraries are compiled on first
+use with
 the toolchain baked into the image (g++); no pip/pybind11 required."""
 
 import ctypes

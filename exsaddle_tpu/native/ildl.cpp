@@ -6,7 +6,7 @@
 // ILUPACK preconditioner stack, which wraps ILUPACK's Fortran-77 DSYMiluc
 // and AMGfactor (pcildl.c:46-286, pcilupack.c:29-176). Sparse
 // pointer-chasing factorization is exactly the kind of work that belongs
-// in native code next to the TPU compute path: it is sequential, branchy
+// in native code next to the accelerator compute path: it is sequential, branchy
 // and latency-bound.
 //
 // Algorithm: column-oriented Crout LDL^T over the (symmetrically permuted)

@@ -6,7 +6,7 @@
 //
 // Native replacement for the former pure-Python factorization loop: the
 // row-by-row IKJ elimination is sequential pointer-chasing, exactly the
-// kind of setup work that belongs in C++ next to the TPU compute path.
+// kind of setup work that belongs in C++ next to the accelerator compute path.
 //
 // Exposed as a C ABI for ctypes (no pybind11 in this image).
 

@@ -1,7 +1,7 @@
 // Fill-reducing orderings + maximum-product matching (native runtime).
 //
 // The reference links METIS / AMD / RCM orderings and the MC64 Fortran
-// matching into ILUPACK (pcildl.c:147-193, Makefile:32-37). TPU-native
+// matching into ILUPACK (pcildl.c:147-193, Makefile:32-37). Native
 // equivalents, from scratch:
 //
 //   amd_order  -- Approximate Minimum Degree (Amestoy-Davis-Duff):

@@ -1,10 +1,10 @@
 """Element-batched saddle-point operator with symmetric Dirichlet elimination.
 
-The TPU-native replacement for PETSc's assembled AIJ matrix + MatMult +
+The JAX replacement for PETSc's assembled AIJ matrix + MatMult +
 MatZeroRowsColumns (femixedspace.c:2350-2645, SURVEY.md section 2.2): the
 operator is stored as per-element dense blocks; y = A x is
 
-    gather x -> batched (nel, ndof_el, ndof_el) matmuls (MXU) -> segment-sum
+    gather x -> batched (nel, ndof_el, ndof_el) matmuls -> segment-sum
 
 Dirichlet elimination (MatZeroRowsColumns with diag=1.0) is applied to the
 element blocks at setup: rows+columns of constrained dofs are zeroed in every

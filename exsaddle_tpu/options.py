@@ -79,7 +79,11 @@ class Options:
     def insert_yaml(self, fname):
         """Load a nested YAML options file (example.yml style): nested keys
         concatenate with '_'."""
-        import yaml
+        try:
+            import yaml
+        except ImportError as e:
+            raise ImportError("-options_file_yaml needs PyYAML, which is "
+                              "not installed") from e
         with open(fname) as f:
             data = yaml.safe_load(f)
 

@@ -219,7 +219,7 @@ def assemble_local_blocks(part, ctx, lame=False):
     projection exactly -- local and global assembly agree to roundoff.
     Returns stacked (dev..., nel_loc, ...) arrays.
 
-    On a real multi-host pod each host runs only its own boxes; this
+    On a real multi-host run each host runs only its own boxes; this
     in-process loop emulates that -- the assembly code path touches one
     box (plus its ghost ring) at a time and never materializes a global
     element batch."""

@@ -374,7 +374,8 @@ def build_cart_abf(part, ctx, bc_idx, bc_vals, lame=False,
             acc[key] = red(acc[key], key)
         # the device-stacked element slabs are addressable-shard
         # PLACEMENT: each process's devices consume only the slabs it
-        # assembled (zero DCN bytes in a real multi-process runtime)
+        # assembled (no cross-process bytes in a real multi-process
+        # runtime)
         for key in ("sv_stack", "ps_stack", "fl_stack"):
             acc[key] = multihost.place_shards(acc[key], key)
         # the spectrum bracket reduces by min/max, not sum

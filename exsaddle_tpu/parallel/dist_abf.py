@@ -1,5 +1,5 @@
 """Distributed fully-jitted ABF solve: slab domain decomposition over a
-device mesh, shard_map + explicit ICI collectives.
+device mesh, shard_map + explicit collectives.
 
 The flagship solver (exsaddle_tpu/abf.py) re-run as ONE shard_map program
 over a 1D device axis "z" slicing the slowest grid axis into element-aligned

@@ -1,35 +1,34 @@
-"""Multi-host (DCN) scaffolding for the cartesian distributed solver.
+"""Multi-host scaffolding for the cartesian distributed solver.
 
 The reference scales across nodes with plain MPI ranks (SURVEY.md section 5:
 `mpiexec -n <ranks>`, PETSc stash exchange + VecScatter over the
-interconnect). The TPU-native equivalent is a TWO-TIER network: chips
-within a host/slice talk over ICI; hosts talk over DCN. This module maps
-the solver's cartesian device grid onto that hierarchy:
+interconnect). Across hosts the network is TWO-TIER: devices within a host
+talk over the host's device links (NVLink between the GPUs of one host);
+hosts talk over the slower network between them. This module maps the
+solver's cartesian device grid onto that hierarchy:
 
   - `initialize()` wraps `jax.distributed.initialize` -- the JAX runtime
     handshake that turns N independent host processes into one logical
     computation (each host sees its local chips + addressable globals).
     It is a guarded no-op in single-process runs, so the same driver
-    script works on a laptop, one TPU VM, or a multi-host pod slice.
+    script works on a laptop, one multi-GPU host, or several hosts.
   - `host_partition()` builds the CartPartition whose OUTERMOST grid axis
     (z in 3D -- the slowest-varying axis of the device stack,
     cart.CartPartition._stack_shape) is the host axis. Every ppermute
-    halo exchange then crosses DCN on at most that one axis (one
-    plane-sized message per neighbor host per apply); the x/y halos and
-    the high-frequency Gram-Schmidt psum stay... the psum spans all axes
-    but its payload is a scalar, which DCN handles at negligible cost.
-    This is the standard "outer axis over DCN" recipe (scaling-book
-    collective design; BASELINE.json nnz/s scaling at 1 chip / 1 host /
-    N hosts).
+    halo exchange then crosses the inter-host network on at most that one
+    axis (one plane-sized message per neighbor host per apply); the x/y
+    halos stay inside a host. The Gram-Schmidt psum spans all axes but
+    its payload is a scalar. This is the standard "outer axis across
+    hosts" recipe.
   - `local_boxes()` gives each process the (ix, iy, iz) element boxes its
     OWN devices own, so per-shard setup (cart_abf.build_cart_abf's
     per-box assembly, femixedspace.c:2306-2647) can run host-locally: a
     host assembles only the element blocks of its slab of the grid.
 
-Real multi-host execution needs a pod slice (not available in this
-environment); the logical path -- device ordering, host-axis placement,
-per-host box ownership -- is exercised by tests/test_multihost.py on a
-virtual 8-device mesh split as 2 hosts x 4 chips.
+Real multi-host execution needs several hosts; the logical path -- device
+ordering, host-axis placement, per-host box ownership -- is exercised by
+tests/test_multihost.py on a virtual 8-device mesh split as 2 hosts x 4
+devices.
 """
 
 import os
@@ -45,8 +44,8 @@ def initialize(coordinator_address=None, num_processes=None,
     """Initialize JAX's multi-process runtime; no-op on a single host.
 
     Multi-process mode is entered when any of the arguments is given or
-    the standard environment (JAX_COORDINATOR_ADDRESS / cloud TPU
-    metadata) announces a multi-process topology. Returns
+    the environment (JAX_COORDINATOR_ADDRESS) announces a multi-process
+    topology. Returns
     (num_processes, process_id) as seen by the runtime after (possible)
     initialization.
     """
@@ -84,7 +83,8 @@ def host_partition(mesh, n_hosts, chips_per_host, chip_shape=None):
     The returned partition's device stack is z-major
     (CartPartition._stack_shape), so devices [h*chips_per_host :
     (h+1)*chips_per_host] of `host_devices()` land exactly on host h's
-    slab -- ICI inside the slab, DCN only across slab faces.
+    slab -- device links inside the slab, the inter-host network only
+    across slab faces.
     """
     nd = mesh.ndim
     if chip_shape is None:
@@ -103,9 +103,10 @@ class HostComm:
 
     Owns the process identity (which element boxes this host assembles,
     via `local_boxes`) and the cross-host summation of the additive setup
-    partials -- the TPU-native equivalent of PETSc's MatAssemblyBegin/End
+    partials -- the JAX equivalent of PETSc's MatAssemblyBegin/End
     stash exchange (femixedspace.c:2624-2625). The default implementation
-    uses the jax multi-process runtime (`process_allgather` over DCN) and
+    uses the jax multi-process runtime (`process_allgather` across
+    hosts) and
     degenerates to the identity in single-process runs; tests inject an
     `allreduce(arr, tag)` callable to drive the same constructor path on
     a simulated multi-host topology.
@@ -139,7 +140,7 @@ class HostComm:
         """Distributed y = sum_h A_h(v): evaluate THIS host's partial
         operator on v and sum the other hosts' contributions. Real leg:
         one dense allreduce of the O(nodes) RESULT vector -- the element
-        data behind local_fn never crosses DCN (the stash-exchange
+        data behind local_fn never crosses hosts (the stash-exchange
         economics of femixedspace.c:2624-2625). Simulated topologies
         evaluate the other hosts' injected closures in-process."""
         y = np.asarray(local_fn(v))
@@ -152,8 +153,9 @@ class HostComm:
     def place_shards(self, stack, tag):
         """Device-stacked per-box slabs: each process assembles and feeds
         only the slabs of its OWN addressable devices, so in a real
-        multi-process runtime this is pure local placement (zero DCN
-        bytes; jax.make_array_from_process_local_data consumes exactly
+        multi-process runtime this is pure local placement (no
+        cross-host bytes; jax.make_array_from_process_local_data consumes
+        exactly
         the local shards). The generic fallback sums the disjoint slabs
         through the same channel as allreduce_dense (the per-box writes
         are disjoint, so the sum IS the placement); the separate method
@@ -182,7 +184,8 @@ def simulated_comm(part, ctx, bc_idx, P_f, grids, n_hosts,
                    process_id=0, lame=False):
     """HostComm for a SIMULATED multi-host topology in one process: the
     other hosts' partials are assembled locally up front and summed
-    through the same tag-keyed allreduce hook a real DCN reduction uses.
+    through the same tag-keyed allreduce hook a real cross-host reduction
+    uses.
     Shared by tests/test_multihost.py and __graft_entry__.dryrun_multichip
     so the reduction tags stay in one place next to build_cart_abf's."""
     from exsaddle_tpu.abf import stencil_from_csr
@@ -211,7 +214,7 @@ def simulated_comm(part, ctx, bc_idx, P_f, grids, n_hosts,
         return arr
 
     # the other hosts' O(local) partial operators (fine esteig probe +
-    # rhs_diri rows): a real runtime sums the result vectors over DCN
+    # rhs_diri rows): a real runtime sums the result vectors across hosts
     apply_others = {"fine_esteig": [], "rhs_diri": []}
     for o in others:
         ua, rr = local_element_partials(mesh, o["el_ids_loc"],

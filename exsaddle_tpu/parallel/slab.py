@@ -1,6 +1,6 @@
 """Slab domain decomposition over a device mesh: the distributed runtime.
 
-The TPU-native replacement for the reference's DMDA rank decomposition +
+The JAX replacement for the reference's DMDA rank decomposition +
 VecScatter halo exchange + MPI_Allreduce reductions (SURVEY.md section 5,
 femixedspace.c:1136-1363). Design:
 
@@ -12,8 +12,9 @@ femixedspace.c:1136-1363). Design:
     DMDA ghosted-local-vector pattern): every device holds the full node
     planes of its elements, so the operator gather needs no communication.
   - After the local apply, partial sums on the two interface planes are
-    exchanged with `lax.ppermute` (ICI neighbor traffic -- the analogue of
-    DMLocalToGlobal ADD_VALUES) and added; both copies then hold the full
+    exchanged with `lax.ppermute` (device-to-device neighbor traffic --
+    the analogue of DMLocalToGlobal ADD_VALUES) and added; both copies then
+    hold the full
     assembled value, keeping the redundant storage consistent.
   - Dot products / norms mask the lower interface plane on all but the
     first device and reduce with `lax.psum` (the MPI_Allreduce of every
@@ -210,7 +211,7 @@ class SlabOperator:
         nd = len(m_el)
         yu = _scatter_q2(yue, m_el, self.nn_u_loc, nd)
         yp = _scatter_q1(ype, m_el, self.nn_p_loc)
-        # interface-plane accumulation over ICI
+        # interface-plane accumulation between neighbor devices
         yu = halo_add(yu)
         yp = halo_add(yp)
         return {"u": yu + self.mask_u * x["u"],

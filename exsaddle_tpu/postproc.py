@@ -49,10 +49,21 @@ def split_fields_2d(v, mx, my=None):
     return ux, uy, p
 
 
-def plot_fields_2d(v, mx, my=None, fname="fields.png"):
-    import matplotlib
+def _pyplot(what):
+    """matplotlib.pyplot on the Agg backend; matplotlib is needed only for
+    the post-processing plots, so it is imported on first use."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise ImportError(f"postproc {what} needs matplotlib, which is not "
+                          "installed") from e
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
+    return plt
+
+
+def plot_fields_2d(v, mx, my=None, fname="fields.png"):
+    plt = _pyplot("field plots (-solution)")
     ux, uy, p = split_fields_2d(np.asarray(v), mx, my)
     umag = np.hypot(ux, uy)
     fig, ax = plt.subplots(2, 2, figsize=(10, 10))
@@ -68,9 +79,7 @@ def plot_fields_2d(v, mx, my=None, fname="fields.png"):
 
 
 def plot_spectrum(BA, fname="spectrum.png", nfew=40):
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    plt = _pyplot("spectrum plots (-preconditioned_operator)")
     s = spectrum(BA)
     fig, ax = plt.subplots(1, 2, figsize=(10, 4))
     ax[0].semilogy(s["pos"], "r+")

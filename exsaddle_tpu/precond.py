@@ -7,20 +7,21 @@ matrix), and geometric multigrid (precond_mg.py).
 
 Setup (factorizations) runs host-side in numpy/scipy like PETSc's setup
 phase; applies are jnp ops so they participate in the device compute path.
-Factors of small systems are stored dense (triangular solves on the MXU);
-a level-scheduled sparse path can replace this for large blocks.
+Factors of small systems are stored dense (triangular solves as dense
+matrix products); a level-scheduled sparse path can replace this for large
+blocks.
 
 Design decision -- which PCs get fully-jitted device paths: the
 production device solver is the ABF stack (abf.py / treeops.py /
 parallel/*): Jacobi, Chebyshev, Galerkin MG, fieldsplit-Schur and the
 replicated coarse all run inside one jitted while_loop, because their
-applies are dense batched ops that map to the MXU. PCBJacobi / PCASM /
-PCILDL applies are host-orchestrated BY DESIGN: their kernels are
-sequential triangular solves over large sparse blocks (ILU(0)/LDL^T
-pointer chasing), which a TPU executes orders of magnitude slower than
-the host -- the TPU-native answer to "I want a strong cheap smoother" is
-the Chebyshev/MG composition above, not a ported incomplete
-factorization. These PCs exist for regression parity with the
+applies are dense batched ops that suit a throughput accelerator.
+PCBJacobi / PCASM / PCILDL applies are host-orchestrated BY DESIGN: their
+kernels are sequential triangular solves over large sparse blocks
+(ILU(0)/LDL^T pointer chasing) with little parallelism per step -- the
+accelerator answer to "I want a strong cheap smoother" is the
+Chebyshev/MG composition above, not a ported incomplete factorization
+(whether a device realization pays is ROADMAP item R6). These PCs exist for regression parity with the
 reference's configurations and run at host speed on host-sized cases.
 """
 

@@ -10,12 +10,13 @@ Capability parity with the reference's two MG configurations:
     operators.
 
 Interpolation between structured node grids is multilinear (DMDA's default
-Q1 interpolation), expressed as a structured gather-with-weights so it maps
-onto TPU as dense vector ops; restriction is the exact transpose
+Q1 interpolation), expressed as a structured gather-with-weights so it runs
+on an accelerator as dense vector ops; restriction is the exact transpose
 (segment-sum scatter)."""
 
 import numpy as np
 import jax.numpy as jnp
+from jax import lax
 
 
 class Prolongation:
@@ -209,16 +210,18 @@ def galerkin_coarse_operators(A_fine_csr, prolongations, dof=1):
 
 def csr_apply(A_csr, max_dense=4096):
     """Return a jnp-compatible matvec closure for a scipy CSR operator:
-    dense below max_dense rows (MXU matmul), padded-row ELL gather above.
+    dense below max_dense rows (one matrix-vector product at full
+    precision: a float32 product must not drop to TF32 on the GPU),
+    padded-row ELL gather above.
 
-    ELL keeps the apply as a static-shape gather + row-sum -- the
-    TPU-friendly form for these bounded-stencil matrices (every row of a
+    ELL keeps the apply as a static-shape gather + row-sum -- a
+    regular-shape form for these bounded-stencil matrices (every row of a
     Q2/Q1 grid operator has <= a few hundred entries); no
     jax.experimental.sparse in any hot path."""
     n = A_csr.shape[0]
     if n <= max_dense:
         Ad = jnp.asarray(A_csr.toarray())
-        return lambda x: Ad @ x
+        return lambda x: jnp.matmul(Ad, x, precision=lax.Precision.HIGHEST)
     A = A_csr.tocsr().sorted_indices()
     counts = np.diff(A.indptr)
     k = int(counts.max())

@@ -9,6 +9,8 @@ serial bjacobi+ILU(0) -- a tighter Schur approximation, so iteration counts
 come out at or BELOW the reference's (testref/exSaddle3d_pseudoice_1.ref:
 20 its; testref/exSaddle2d_ar_1.ref: 8 its)."""
 
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -20,6 +22,9 @@ from exsaddle_tpu.assembly import (FESpace, assemble_rhs, scatter_vector,
                                    project_qp_to_q1, interp_q1_to_qp)
 from exsaddle_tpu.mesh import SaddleMesh
 from exsaddle_tpu.abf import ABFSolver
+
+ABF_OPTS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "abf.opts")
 
 
 def _setup_case(ndim, m_el, size, model, **solver_kw):
@@ -91,16 +96,8 @@ def test_abf_jitted_matches_host_quality():
 
     lines = []
     opts = Options.from_args(
-        "-options_file /root/reference/abf.opts -model 11 -size_x 0.1 "
-        "-mx 4".split())
-    import os
-    prev = os.getcwd()
-    os.chdir("/root/reference")
-    try:
-        host = driver.saddle_solve(opts, 3,
-                                   log=lambda *a: lines.append(a))
-    finally:
-        os.chdir(prev)
+        ["-options_file", ABF_OPTS] + "-model 11 -size_x 0.1 -mx 4".split())
+    host = driver.saddle_solve(opts, 3, log=lambda *a: lines.append(a))
     tr_host = _true_residual(slv, F, np.asarray(host["X"]))
     # same operator/RHS: host result must satisfy the same residual target
     assert tr_host <= 1.2e-5 * res["history"][0]

@@ -1,7 +1,7 @@
-"""One-binary dispatch (VERDICT r3 item 6): the same options tree reaches
-either the host-orchestrated KSP stack (-tpu 0 / CPU default) or the
-fully-jitted ABFSolver (-tpu 1 / accelerator default), like the
-reference's single executable (exSaddle.c:124-566).
+"""One-binary dispatch: the same options tree reaches either the
+host-orchestrated KSP stack (-jit 0 / CPU default) or the fully-jitted
+ABFSolver (-jit 1 / accelerator default), like the reference's single
+executable (exSaddle.c:124-566).
 
 The jitted p-block is the Chebyshev stand-in for serial bjacobi+ILU(0),
 so histories are equivalent-quality, not bit-identical: the
@@ -17,33 +17,24 @@ import pytest
 from exsaddle_tpu.options import Options
 from exsaddle_tpu.driver import saddle_solve, _abf_options_match
 
-ARGS = ("-options_file /root/reference/abf.opts -model 11 -size_x 0.1 "
-        "-mx 6 -saddle_ksp_monitor_short -saddle_ksp_converged_reason "
-        "-diagnostics").split()
+ABF_OPTS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "abf.opts")
+ARGS = ["-options_file", ABF_OPTS] + (
+    "-model 11 -size_x 0.1 -mx 6 -saddle_ksp_monitor_short "
+    "-saddle_ksp_converged_reason -diagnostics").split()
 
 
-def _run(tpu):
+def _run(jit):
     lines = []
-    opts = Options.from_args(ARGS + ["-tpu", tpu])
-    prev = os.getcwd()
-    os.chdir("/root/reference")
-    try:
-        r = saddle_solve(opts, 3,
-                         log=lambda *a: lines.append(
-                             " ".join(str(x) for x in a)))
-    finally:
-        os.chdir(prev)
+    opts = Options.from_args(ARGS + ["-jit", jit])
+    r = saddle_solve(opts, 3,
+                     log=lambda *a: lines.append(
+                         " ".join(str(x) for x in a)))
     return lines, r
 
 
 def test_abf_options_match():
-    opts = Options.from_args(ARGS)
-    prev = os.getcwd()
-    os.chdir("/root/reference")
-    try:
-        assert _abf_options_match(opts)
-    finally:
-        os.chdir(prev)
+    assert _abf_options_match(Options.from_args(ARGS))
     # a non-ABF tree must not dispatch
     assert not _abf_options_match(Options.from_args(["-mx", "4"]))
     assert not _abf_options_match(Options.from_args(["-fs"]))
@@ -73,3 +64,22 @@ def test_dispatch_host_vs_jitted_parity():
     X0 = np.asarray(r0["X"])
     X1 = np.asarray(r1["X"])
     assert (np.linalg.norm(X0 - X1) / np.linalg.norm(X0)) < 1e-3
+
+
+@pytest.mark.parametrize("flags,mode", [
+    (["-jit", "1", "-ir"], "ir"),
+    (["-jit", "0", "-ir"], None),
+    (["-ir"], None),            # CPU backend: host stack by default
+])
+def test_jit_flag_dispatch(flags, mode):
+    """The committed abf.opts reaches the jitted refinement solver under
+    -jit 1, and the host KSP stack under -jit 0 or by default on CPU. An
+    odd element count does not split over the 8 virtual devices, so the
+    jitted run stays on one device (two velocity-MG levels: an odd grid
+    coarsens once)."""
+    opts = Options.from_args(
+        ["-options_file", ABF_OPTS, "-model", "11", "-size_x", "0.1",
+         "-mx", "3", "-saddle_fieldsplit_u_pc_mg_levels", "2"] + flags)
+    r = saddle_solve(opts, 3, log=lambda *a: None)
+    assert getattr(r["ksp"], "_mode", None) == mode
+    assert "CONVERGED" in str(r["result"].reason)

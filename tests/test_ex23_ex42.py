@@ -3,6 +3,7 @@ ex23mod.c) and ex42 (3D Q1-Q1 stabilized Stokes, ex42mod.c). The reference
 ships no golden outputs for these, so assertions are structural: solver
 behavior, discrete conservation, stabilization effect, output formats."""
 
+import os
 import re
 
 import numpy as np
@@ -11,6 +12,9 @@ import scipy.sparse as sp
 from exsaddle_tpu.options import Options
 from exsaddle_tpu.ex23 import solve_ex23
 from exsaddle_tpu.ex42 import solve_stokes_3d_coupled, Ex42Problem
+
+ABF_OPTS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "abf.opts")
 
 
 def _collect():
@@ -146,7 +150,7 @@ def test_ksp_view_tree_structure():
     sys.path.insert(0, os.path.dirname(__file__))
     from refcompare import run_case
     lines, _ = run_case(
-        "-options_file /root/reference/abf.opts -model 11 -size_x 0.1 -mx 4 "
+        f"-options_file {ABF_OPTS} -model 11 -size_x 0.1 -mx 4 "
         "-saddle_ksp_view -saddle_ksp_max_it 2", ndim=3)
     txt = "\n".join(lines)
     for frag in [

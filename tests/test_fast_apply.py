@@ -1,4 +1,4 @@
-"""Correctness of the TPU fast-apply paths against the element-batched
+"""Correctness of the fast-apply paths against the element-batched
 reference operator: grid_ops strided apply, matrix-free factored apply,
 parity-layout apply, assembled-nnz model, and the compiled (fully-jitted)
 FGMRES path vs the host-orchestrated KSP."""
@@ -133,33 +133,3 @@ def test_tree_fgmres_matches_host_ksp():
                     monitor=lambda i, r: hist.append(r))
     KSP(pop.mult, pc=precond.PCJacobi(np.asarray(diag)), cfg=cfg).solve(Fp)
     assert abs(hist[-1] - float(rn)) / hist[-1] < 1e-8
-
-
-def test_pallas_fused_apply_matches_xla():
-    """The pallas kernel experiment (pallas_apply.py -- a documented
-    negative perf result) must stay CORRECT: its fused
-    gather/GEMM/scale/GEMM/scatter equals the XLA factored apply to f32
-    summation order. TPU only (Mosaic kernels do not run on the CPU
-    backend without interpret mode)."""
-    if jax.default_backend() == "cpu":
-        pytest.skip("pallas TPU kernel; CPU backend runs the XLA path")
-    from exsaddle_tpu.matfree import to_tree, tree_aux
-    from exsaddle_tpu.pallas_apply import make_pallas_mult_u
-    mesh, fes, coeff, op_el, bc_mask = _build(3, (4, 3, 5), False, "11",
-                                              (0.1, 1.0, 1.0))
-    op = ParityMatFreeOperator.build(mesh, fes, coeff, bc_mask,
-                                     dtype=jnp.float32)
-    ks, ms, kp, mp = tree_aux(op)
-    x = jnp.asarray(np.random.default_rng(3)
-                    .standard_normal(mesh.ndof).astype(np.float32))
-    subs, pg = to_tree(op, x)
-    xin = [s * k for s, k in zip(subs, ks)]
-    pm = make_pallas_mult_u(op)
-    with jax.default_matmul_precision("float32"):
-        y_p = jax.jit(pm)(xin)
-        xe = op._gather_u(xin)
-        yue = ((xe @ op.Bs.T) * op.scale_visc) @ op.Bs
-        y_x = op._scatter_u(yue)
-    for a, b in zip(y_p, y_x):
-        scale = float(jnp.abs(b).max()) + 1e-30
-        assert float(jnp.abs(a - b).max()) / scale < 1e-5

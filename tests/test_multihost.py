@@ -1,12 +1,12 @@
-"""Multi-host (DCN) scaffolding tests (exsaddle_tpu/parallel/multihost.py).
+"""Multi-host scaffolding tests (exsaddle_tpu/parallel/multihost.py).
 
-Real multi-host execution needs a pod slice; here the 8 virtual CPU
+Real multi-host execution needs several hosts; here the 8 virtual CPU
 devices (conftest) are split as a LOGICAL 2 hosts x 4 chips topology and
 we verify every property the scaffolding is responsible for:
 
   - the host axis lands on the outermost grid dimension, so each host's
-    chips are a contiguous z-slab (ICI inside, DCN only across slab
-    faces);
+    chips are a contiguous z-slab (device links inside, the inter-host
+    network only across slab faces);
   - per-host box ownership partitions the device grid;
   - host-local assembly (cart_abf.assemble_host_local) is ADDITIVE: the
     sum of the two hosts' partial accumulations reproduces the
@@ -194,8 +194,8 @@ def test_multihost_wired_constructor_path():
     ctx, mesh, fes, coeff, bc_idx, bc_vals = _problem()
     part = multihost.host_partition(mesh, N_HOSTS, CHIPS, chip_shape=(2, 2))
 
-    # the other hosts' partials, precomputed the same way a real DCN
-    # allreduce would sum them (shared helper, also used by the dryrun)
+    # the other hosts' partials, precomputed the same way a real
+    # cross-host allreduce would sum them (shared helper, also used by the dryrun)
     grids = [tuple(mesh.nn_u)]
     for _ in range(2):
         grids.append(tuple((m + 1) // 2 for m in grids[-1]))
